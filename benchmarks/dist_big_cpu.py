@@ -1,13 +1,13 @@
-"""BASELINE config 5 end-to-end: >=100M-nnz row-partitioned SpGEMM over the
+"""End-to-end >=100M-nnz row-partitioned SpGEMM over the
 8-device CPU mesh (SURVEY.md §4.3's distributed-without-a-cluster rig).
 
-Composes the two halves that were previously only demonstrated separately
-(VERDICT r4 missing #1): the piece streaming of ``spgemm_slab_big`` and the
+Composes the two halves that were previously only demonstrated separately:
+the piece streaming of ``spgemm_slab_big`` and the
 row-sharded SPMD execution of ``spgemm_spmd`` — via
 :func:`spmm_tpu.parallel.spgemm_dist_big`.  Asserts EXACT scipy parity
 (nnz, indptr, indices) of the stitched result.
 
-One physical core drives all 8 virtual devices here, so wall-clock measures
+The 8 virtual devices share the host's cores, so wall-clock measures
 program-overhead and memory behavior, not speedup — the scaling story lives
 in ``scaling_cpu.py`` / ``bench.py``'s shard-balance projection.
 

@@ -1,13 +1,11 @@
 #!/usr/bin/env python
-"""Workload validation for the synthetic stand-ins (VERDICT r1 missing #1).
+"""Workload validation for the synthetic stand-ins.
 
-SuiteSparse is unreachable from this container (zero egress — DNS resolution
-itself fails; verified 2026-08-17), so the benchmarks run on
+The benchmarks run without network access, so they use
 ``formats/synthetic.py:webgraph_like``.  This script measures the statistics
 of the synthetic that DRIVE each benchmarked kernel and prints them next to
 the published numbers of the real graphs they stand in for, so the proxy's
-fidelity (and its known biases) are quantified rather than assumed.  Output
-feeds BASELINE.md §"Synthetic workload validation".
+fidelity (and its known biases) are quantified rather than assumed.
 
 Usage: python benchmarks/validate_synthetic.py [--full]
 (--full also computes nnz(A^2) by scipy on the 916k-node graph: ~1 min)

@@ -2,7 +2,7 @@
 
 The fourth classic workload over the reference's web-graph matrices
 (alongside pagerank/CG/triangle counting): BFS distance labeling is repeated
-sparse matrix-vector products over the boolean semiring.  TPU-shaped here as
+sparse matrix-vector products over the boolean semiring.  Shaped here as
 a single compiled ``lax.while_loop`` whose body is one ELL SpMV on the
 transposed adjacency (frontier push), a visited-mask update, and a distance
 write — no host round-trips between levels; the loop exits on device when

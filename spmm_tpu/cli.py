@@ -72,8 +72,9 @@ def process_matrix(path: str, args) -> dict:
         Y = np.asarray(f(E, B))
         out["spmm_ms"] = (time.perf_counter() - t0) * 1e3
         if args.check:
-            ref = A.to_scipy() @ np.asarray(B)
+            ref = A.to_scipy().astype(np.float64) @ np.asarray(B, np.float64)
             out["spmm_max_err"] = float(np.abs(Y - ref).max())
+            out["spmm_rel_err"] = out["spmm_max_err"] / max(float(np.abs(ref).max()), 1e-30)
 
     if args.spgemm:
         from spmm_tpu.ops import spgemm
@@ -83,14 +84,23 @@ def process_matrix(path: str, args) -> dict:
         out["spgemm_ms"] = (time.perf_counter() - t0) * 1e3
         out["spgemm_out_nnz"] = C.nnz
         if args.check:
-            ref = (A.to_scipy() @ A.to_scipy()).tocsr()
+            S = A.to_scipy().astype(np.float64)
+            ref = (S @ S).tocsr()
             ref.sum_duplicates()
+            ref.sort_indices()
             d = abs(C.to_scipy() - ref)
             out["spgemm_max_err"] = float(d.max()) if d.nnz else 0.0
+            # same nnz, row pointers and column order as scipy
+            out["spgemm_exact"] = bool(
+                C.nnz == ref.nnz
+                and np.array_equal(np.asarray(C.indptr, np.int64), ref.indptr)
+                and np.array_equal(np.asarray(C.indices)[: C.nnz], ref.indices)
+                and out["spgemm_max_err"] == 0.0
+            )
     return out
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dir", default=".", help="directory with matrix.txt + mat/mtx/...")
     ap.add_argument("--matrix", help="single .mtx path (bypasses matrix.txt)")
@@ -108,15 +118,20 @@ def main(argv=None) -> int:
                     "products (killed runs resume at the last finished piece)")
     ap.add_argument("--check", action="store_true", help="verify against scipy")
     ap.add_argument("--save-format", action="store_true", help="persist the packed format")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def run(argv=None) -> list:
+    """Process every matrix ``argv`` names; returns one result dict each
+    and prints the reference's per-matrix report.  Raises FileNotFoundError
+    when neither ``--matrix`` nor ``DIR/matrix.txt`` exists."""
+    args = _parser().parse_args(argv)
     if args.matrix:
         paths = [args.matrix]
     else:
         mlist = os.path.join(args.dir, "matrix.txt")
         if not os.path.exists(mlist):
-            print(f"no {mlist}; pass --matrix or --dir", file=sys.stderr)
-            return 2
+            raise FileNotFoundError(f"no {mlist}; pass --matrix or --dir")
         with open(mlist) as f:
             names = [ln.split(".")[0].strip() for ln in f if ln.strip()]
         paths = [os.path.join(args.dir, "mat", "mtx", n, f"{n}.mtx") for n in names]
@@ -135,6 +150,15 @@ def main(argv=None) -> int:
             for r in results:
                 name = os.path.splitext(r["matrix"])[0]
                 f.write(f"{name} {r['preprocess_ms']:.3f}ms\n")
+    return results
+
+
+def main(argv=None) -> int:
+    try:
+        run(argv)
+    except FileNotFoundError as e:
+        print(e, file=sys.stderr)
+        return 2
     return 0
 
 

@@ -1,12 +1,11 @@
-"""BSR (block-sparse row) format — MXU-shaped dense blocks.
+"""BSR (block-sparse row) format — dense blocks for block products.
 
-The reference mandate includes BSR/block-compressed storage (BASELINE.json
-configs 3-4).  Blocks default to (8, 128): fp32 sublane × lane tile, so each
-block is exactly one VREG tile and block products run on the MXU.
+Block-compressed storage for SpMM and SpMV.  Blocks default to (8, 128): 8
+rows, the reference's v8 group height, by 128 columns.  The GPU kernel
+(ops/pallas_bsr.py) pads blocks under 16 rows in-kernel for its dot.
 
 Every block row is guaranteed at least one block (a zero block is inserted
-for empty block rows) so the Pallas kernel's revisit-accumulate scheme always
-initializes every output tile.
+for empty block rows), so every output tile of a block-row walk is written.
 
 The 8-row block granularity is the same one the reference's v8 packing
 targets for SIMD (reference: PreProcessing/v8sort.h:64,194;

@@ -1,6 +1,6 @@
 """Sparse containers as JAX pytrees.
 
-TPU-native replacement for the reference's ``SpM`` CSR class
+Replacement for the reference's ``SpM`` CSR class
 (reference: PreProcessing/csr.h:8-117 — raw ``double*/int*`` buffers with
 deep-copy semantics and several latent bugs, see SURVEY.md §2.2).  Here the
 containers are immutable dataclasses registered as pytrees whose leaves may be
@@ -134,7 +134,7 @@ class CSR:
     @staticmethod
     def from_scipy(m, dtype=None) -> "CSR":
         """Value dtype is preserved by default (fp64 parity mode needs it);
-        pass ``dtype=np.float32`` to force the TPU performance dtype."""
+        pass ``dtype=np.float32`` to force the fp32 kernel dtype."""
         m = m.tocsr()
         return CSR(
             data=np.asarray(m.data, dtype=dtype if dtype is not None else m.data.dtype),
@@ -148,9 +148,9 @@ class CSR:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class BlockedCSR:
-    """The preprocessed, TPU-blocked format — output of the full pipeline.
+    """The preprocessed, blocked format — output of the full pipeline.
 
-    TPU-native equivalent of the reference's (leaked) per-region outputs
+    Equivalent of the reference's (leaked) per-region outputs
     ``bserial_indptr / bserial_colidx / bserial_data`` plus the permutation
     vectors ``seq / rseq / seq_input / seq_offset``
     (reference: serial_newblock_clock.cpp:336-453, wbsort.h:16-95; SURVEY.md

@@ -1,6 +1,6 @@
 """MatrixMarket (.mtx) ingest.
 
-TPU-native replacement for the reference's iostream reader
+Replacement for the reference's iostream reader
 (reference: serial_newblock_clock.cpp:47-124).  Exact contract reproduced in
 ``values="pattern"`` mode (SURVEY.md §2.1):
 

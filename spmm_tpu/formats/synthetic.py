@@ -31,7 +31,7 @@ def webgraph_like(
     section), the rest hit popular global columns (zipf).
 
     Parameters are calibrated against published web-graph statistics
-    (benchmarks/validate_synthetic.py; report in BASELINE.md):
+    (benchmarks/validate_synthetic.py):
     ``zipf_a=2.72`` is the web out-degree power-law exponent (Broder et al.
     2000) — multiplicative rescaling to the target density preserves it;
     ``empty_frac=0.044`` is the SuiteSparse web-Google id-space gap

@@ -1,6 +1,6 @@
 // Native MatrixMarket coordinate-body parser.
 //
-// TPU-framework host component replacing the reference's iostream reader
+// Host component replacing the reference's iostream reader
 // (reference: PreProcessing/serial_newblock_clock.cpp:47-124, two `fin >>`
 // passes over nnz entries).  Single pass, branch-light manual int/float
 // parsing over an in-memory buffer; ~20-40x faster than iostream and ~10x

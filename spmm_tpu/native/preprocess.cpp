@@ -1,6 +1,6 @@
 // Native host preprocessing passes (the sequential/hash-bound pieces).
 //
-// TPU-framework host components replacing the reference's serial scans with
+// Host components replacing the reference's serial scans with
 // equivalent-but-correct implementations (cited per function):
 //  - region_split: first-touch distinct-column budget scan
 //    (reference: PreProcessing/transmat.h:334-376)
@@ -587,7 +587,7 @@ void dominant_sections(const long long* indptr, const int* cols, long long nrow,
 }
 
 // ELL slab fill: one memcpy+memset pass per row into a (R, L) slab pair —
-// the TPU ELL pack's hot loop (formats/ell.py).  numpy's broadcast-mask
+// the ELL pack's hot loop (formats/ell.py).  numpy's broadcast-mask
 // double fancy-index build of the same slabs costs ~5 passes over nnz plus
 // an int64 widening of the column ids; this is a single streaming pass
 // (~GB/s), which is what drops the web-Google auto-pack from ~260 ms to

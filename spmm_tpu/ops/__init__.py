@@ -9,11 +9,11 @@ from spmm_tpu.ops.slab_spgemm import (
 )
 
 # the slab-sorted ESC kernel is the production SpGEMM (batched minor-axis
-# sorts; ~50x the global-sort path on TPU); spgemm_sorted remains as the
+# sorts instead of one global sort); spgemm_sorted remains as the
 # fallback/oracle and handles the heavy-tail rows
 spgemm = spgemm_slab
 from spmm_tpu.ops.ell_spmm import ell_spmm, ell_spmv
-from spmm_tpu.ops.pallas_bsr import bsr_spmm_pallas, bsr_spmm_xla, bsr_spmv
+from spmm_tpu.ops.pallas_bsr import bsr_spmm, bsr_spmm_pallas, bsr_spmm_xla, bsr_spmv
 from spmm_tpu.ops.blocked import (
     blocked_chain_spmv,
     blocked_panel_view,
@@ -51,6 +51,7 @@ __all__ = [
     "spgemm_expand_bound",
     "ell_spmm",
     "ell_spmv",
+    "bsr_spmm",
     "bsr_spmm_pallas",
     "bsr_spmv",
     "bsr_spmm_xla",

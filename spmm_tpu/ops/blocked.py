@@ -2,13 +2,12 @@
 
 This is the consumer the reference format implies but never ships
 (SURVEY.md §3.3): per region, gather the compacted RHS panel
-(``gather_cols`` slots — bounded by the region budget so it fits VMEM), then
+(``gather_cols`` slots — bounded by the region budget), then
 multiply v8 groups as dense (8, L) tiles and remain rows as gathered dot
 products, writing rows in final order; un-permute with ``row_inv`` at the end.
 
-``blocked_spmm_xla`` is the XLA formulation — the production path; see
-``blocked_spmm`` for why a Pallas VMEM-panel kernel is infeasible on this
-toolchain.
+``blocked_spmm_slab`` is the production path; ``blocked_spmm_xla`` and
+``blocked_spmm_panel`` are the alternative formulations it was chosen over.
 """
 
 from __future__ import annotations
@@ -62,7 +61,7 @@ def blocked_exec_view(P: BlockedCSR):
     """Pack-once execution view: (out_rows, global_cols) per packed nonzero,
     computed on device once and reused across multiplies — recomputing the
     v8-interleave/relabel indirections per call costs as much as the multiply
-    itself (measured 123 ms vs 84 ms on web-Google)."""
+    itself (measured on web-Google on the first target)."""
     out_rows = _final_out_rows(P)
     gcols = _global_cols(P)
     return jax.block_until_ready((out_rows, gcols))
@@ -111,7 +110,7 @@ def blocked_spmm_panel(
 ) -> jax.Array:
     """Y = unpack(P) @ B via the two-stage region-panel gather: stage 1
     compacts the referenced B rows once (``take(B, gather_cols)`` —
-    ndistinct ≤ nnz rows, each region's stretch VMEM-budget-bounded by the
+    ndistinct ≤ nnz rows, each region's stretch budget-bounded by the
     region split, SURVEY.md §2.4); stage 2 gathers each packed nonzero's
     contribution from the COMPACTED panel by relabeled slot.  Compare
     against :func:`blocked_spmm_xla` (single gather from full B) — the
@@ -274,21 +273,15 @@ def blocked_spmm(
     P: BlockedCSR, B: jax.Array, *, view=None, accum_dtype=jnp.float32
 ) -> jax.Array:
     """Dispatcher for the packed-format SpMM — routes to the v8-SLAB path,
-    the fastest formulation (measured on web-Google k=128, device-loop
-    fenced: slab 51.1 ms; slab with the two-stage panel gather 57.4;
-    segment-sum formulations 111-117; plain ELL 45-49).
+    which beat the two-stage panel gather and the segment-sum formulations
+    on the accelerator this was first built on; not re-measured on a GPU.
 
     ``view``: a :func:`blocked_slab_view` built once for repeated multiplies
     (pack-once / multiply-many); one-shot calls build it here.
 
-    A Pallas kernel staging the per-region gathered RHS panel in VMEM was
-    prototyped and is NOT shippable on this toolchain: Mosaic's only gather
-    primitive (``tpu.dynamic_gather``) spans a single vreg (8 sublanes) along
-    the gather dimension, so random row gathers from a VMEM panel cannot be
-    expressed ("Multiple source vregs along gather dimension").  The
-    two-stage panel gather (the SURVEY §3.3 blueprint) was built and measured
-    instead — see DESIGN.md §3 for why panel compaction cannot beat the
-    per-row gather charge on power-law graphs.  For raw one-shot SpMM speed
+    The two-stage panel gather (the SURVEY §3.3 blueprint) is
+    :func:`blocked_spmm_panel`; DESIGN.md §3 says why panel compaction did
+    not pay on power-law graphs.  For raw one-shot SpMM speed
     use the ELL kernel (ops/ell_spmm.py); this format's unique payoff is
     :func:`blocked_chain_spmv` (the reference's seq_input A^k·x contract).
     """

@@ -5,7 +5,7 @@ the slab values, reduce densely over L (no scatter); concatenate slabs in
 sorted-row order; one gather un-permutes to the original row order.  The
 leftover long rows use the segment-sum path (they are few).
 
-The length-class slabs are the TPU recast of the reference's per-panel
+The length-class slabs recast the reference's per-panel
 row-length sort (reference: PreProcessing/v8sort.h:152-232, which groups
 equal-length rows for SIMD-8 processing; here equal-length rows batch into
 dense (R, L) tiles, SURVEY.md §2.6).
@@ -44,8 +44,8 @@ def _slab_loop(E: ELL, B, pick, k, accum_dtype, permute_back):
                 y = y + slab_d[:, e : e + 1].astype(accum_dtype) * pick(slab_c[:, e])
         else:
             picked = pick(slab_c.reshape(-1)).reshape(R, L, k)
-            # TPU einsum defaults to bf16 MXU passes (~1e-3 relative error on
-            # long rows); the kernel is gather-bound, so full f32 is free
+            # full fp32: a default-precision einsum may run reduced-precision
+            # passes (bf16/TF32, ~1e-3 relative error on long rows)
             y = jnp.einsum(
                 "rl,rlk->rk", slab_d.astype(accum_dtype), picked, precision=hi
             )
@@ -61,13 +61,11 @@ def _slab_loop(E: ELL, B, pick, k, accum_dtype, permute_back):
 
 
 #: narrow-k strategy: "widen" (zero-pad B to 128 lanes, run the wide path,
-#: slice the output), "einsum" (one-hot MXU pick of the k-lane group), or
-#: "select" (log2(G) masked VPU selects).  A/B'd on the web-Google ELL at
-#: k=32 (r2): widen 70.9 ms == the k=128 wide path's 71.6 ms, fold+einsum
-#: 84.6, fold+select 91.3 — the kernel is gather-bound and gathers charge
-#: per ROW, so the wide fetch costs the same while every pick variant adds
-#: a per-slot pass (the same finding that set the SpGEMM B2 stride,
-#: micro_b2gather.py: wide k-lane group picks are the slow configuration).
+#: slice the output), "einsum" (one-hot dot pick of the k-lane group), or
+#: "select" (log2(G) masked selects).  "widen" was chosen on the premise
+#: that row gathers cost the same at any width, so the wide fetch is free
+#: while every pick variant adds a per-slot pass.  Whether that still holds
+#: on a GPU, where gathers move 32 B sectors, is open (ROADMAP S6).
 PICK_IMPL = "widen"
 
 
@@ -80,15 +78,11 @@ def ell_spmm(
     if k < 128:
         impl0 = pick_impl or PICK_IMPL
         if impl0 == "widen":
-            # zero-pad the RHS to full lane width and run the wide path: the
-            # kernel is gather-bound and gathers charge per ROW, so the wide
-            # fetch is free while every fold-and-pick variant pays a per-slot
-            # pass (see PICK_IMPL) — the k=32 inversion of r1 came from here.
-            # The barrier MATERIALIZES the padded B: without it XLA fuses the
-            # concat into every slab gather (a per-row select) — measured
-            # 80.9 ms vs 49.1 with the barrier at web-Google k=32.  The
-            # un-permute gather runs on the SLICED (m, k) output, not the
-            # padded width.
+            # zero-pad the RHS to full lane width and run the wide path
+            # (see PICK_IMPL).  The barrier MATERIALIZES the padded B:
+            # without it XLA fuses the concat into every slab gather (a
+            # per-row select).  The un-permute gather runs on the SLICED
+            # (m, k) output, not the padded width.
             Bp = jnp.concatenate(
                 [B, jnp.zeros((B.shape[0], 128 - k), B.dtype)], axis=1
             )

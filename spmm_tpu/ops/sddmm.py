@@ -5,9 +5,8 @@
 frameworks (graph attention scores, low-rank residual sampling); the
 reference has no compute ops at all, so this rounds out the kernel surface.
 
-TPU shape: two aligned row gathers (U rows by nonzero row id, V rows by
-column id — the fast primitive, ~8 G elem/s at k=128) and a VPU dot per
-nonzero.  No scatters; output values land in CSR nonzero order.
+Shape: two aligned row gathers (U rows by nonzero row id, V rows by
+column id) and an elementwise dot per nonzero.  No scatters; output values land in CSR nonzero order.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Segment-id expansion primitives.
 
-``jnp.searchsorted`` lowers to ~log2(n) serial gather passes on TPU and is
-catastrophically slow at scale (measured: 679 ms for 5M lookups into a 916k
-table on v5e, vs 25 ms for the gathers of an entire SpMM).  Expanding sorted
-boundaries into per-element segment ids is instead one scatter-add plus one
-cumsum — O(n) streaming ops the VPU is good at.
+``jnp.searchsorted`` lowers to ~log2(n) dependent gather passes, which was
+measured to be slow at scale on the accelerator this was first built on.
+Expanding sorted boundaries into per-element segment ids is instead one
+scatter-add plus one cumsum — O(n) streaming ops.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """SpGEMM — sparse × sparse (general A·B; A·A is the reference workload).
 
 The reference only *prepares* matrices for this product and implies the
-A_pattern × A_pattern ground truth (SURVEY.md §3.3-3.4).  TPU-native design:
+A_pattern × A_pattern ground truth (SURVEY.md §3.3-3.4).  Design:
 the classic two-phase expand/sort/merge ESC algorithm recast onto XLA's
 strengths — one big gather (expansion), one big multi-key ``lax.sort``, one
 segment-sum (merge).  All shapes static: the exact expansion size is computed
@@ -107,8 +107,8 @@ _ESC_JIT = None
 
 def _jitted_esc():
     """Module-cached jit of the ESC kernel so repeated spgemm() calls with the
-    same static buckets reuse compiles (XLA sort compiles are ~25-40 s on
-    TPU)."""
+    same static buckets reuse compiles (large XLA sort programs compile
+    slowly)."""
     global _ESC_JIT
     if _ESC_JIT is None:
         _ESC_JIT = jax.jit(spgemm_coo_padded, static_argnames=("expand_size",))
@@ -126,8 +126,9 @@ def spgemm(
     memory, device ESC per chunk, host concatenation.  Returns CSR (or COO).
 
     This is the fallback/oracle path (and the heavy-tail row handler for the
-    production slab kernel, ops/slab_spgemm.py): a global TPU ``lax.sort``
-    runs ~20x slower than the slab kernel's batched minor-axis sorts."""
+    production slab kernel, ops/slab_spgemm.py): one global ``lax.sort``
+    over every partial product instead of the slab kernel's batched
+    minor-axis sorts."""
     if A.nnz == 0 or B.nnz == 0:
         out = COO(
             row=np.zeros(0, np.int32),

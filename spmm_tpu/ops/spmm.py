@@ -5,9 +5,9 @@ kernels its preprocessing exists to feed.  Two tiers:
 
 - ``*_xla``: pure-XLA gather + segment-sum formulations.  Correct for any CSR
   (padded or tight), differentiable, shardable; these are also the oracle for
-  the Pallas kernels.
-- ``spmm`` / ``spmv``: dispatchers that pick the best available path
-  (Pallas kernel for preprocessed/blocked inputs, XLA otherwise).
+  the format-specific kernels.
+- ``spmm`` / ``spmv``: dispatchers that pick the path for the input format
+  (ELL slabs, BSR block products, the preprocessed BlockedCSR, raw CSR).
 
 Numeric convention: accumulate in float32 (``preferred_element_type``
 semantics); values may be stored bf16/fp32/fp64.
@@ -33,7 +33,7 @@ def spmm_xla(A: CSR, B: jax.Array, *, accum_dtype=jnp.float32) -> jax.Array:
     Padded nonzeros (data == 0) contribute nothing regardless of their index,
     so no masking is needed.  HBM traffic ≈ nnz·(4+4) for A, nnz·4k gather
     from B, m·4k for Y — the preprocessed/blocked kernel beats this by staging
-    compacted B panels in VMEM (SURVEY.md §3.3).
+    compacted B panels (SURVEY.md §3.3).
     """
     rows = _row_ids(A)
     gathered = jnp.take(B, jnp.asarray(A.indices), axis=0).astype(accum_dtype)
@@ -53,9 +53,8 @@ def spmv_xla(A: CSR, x: jax.Array, *, accum_dtype=jnp.float32) -> jax.Array:
 
 
 #: above this nnz the CSR dispatchers auto-pack to ELL (pack once, memoized
-#: per CSR instance).  Raw CSR gather+segment-sum hits the scalar-gather AND
-#: scatter walls simultaneously (~85 ms on web-Google SpMV — as slow as a
-#: k=128 SpMM, BENCH_r01); the ELL slabs cost one host pack (~nnz sort) and
+#: per CSR instance).  Raw CSR gather+segment-sum pays a scalar gather AND a
+#: scatter per nonzero; the ELL slabs cost one host pack (~nnz sort) and
 #: every subsequent multiply runs scatter-free.  Below the threshold the
 #: pack isn't worth the host pass.
 AUTO_ELL_THRESHOLD = 1 << 18
@@ -91,7 +90,7 @@ def _auto_ell(A) -> bool:
 
 def spmm(A, B: jax.Array, **kw) -> jax.Array:
     """Dispatch SpMM on the input format: ELL (fastest unstructured path,
-    scatter-free), BSR (MXU block products), BlockedCSR (reference-parity
+    scatter-free), BSR (dense block products), BlockedCSR (reference-parity
     packed format), CSR (gather + segment-sum; large host CSRs auto-pack to
     ELL once and reuse the pack across calls)."""
     from spmm_tpu.formats.bsr import BSR
@@ -103,9 +102,9 @@ def spmm(A, B: jax.Array, **kw) -> jax.Array:
 
         return ell_spmm(A, B, **kw)
     if isinstance(A, BSR):
-        from spmm_tpu.ops.pallas_bsr import bsr_spmm_pallas
+        from spmm_tpu.ops.pallas_bsr import bsr_spmm
 
-        return bsr_spmm_pallas(A, B, **kw)
+        return bsr_spmm(A, B, **kw)
     if isinstance(A, BlockedCSR):
         from spmm_tpu.ops.blocked import blocked_spmm
 

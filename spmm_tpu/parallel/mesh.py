@@ -1,8 +1,8 @@
 """Device mesh helpers.
 
-TPU-native equivalent of the reference's (absent) multi-process runtime
+Equivalent of the reference's (absent) multi-process runtime
 (SURVEY.md §2.12): scaling is expressed as a ``jax.sharding.Mesh`` +
-``shard_map`` with XLA collectives over ICI/DCN — no custom transport.
+``shard_map`` with XLA collectives (NCCL on GPUs) — no custom transport.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def make_mesh(
 
 def initialize_distributed(*, retries: int = 5, backoff_s: float = 2.0) -> None:
     """Multi-host bootstrap (no-op single-host): ``jax.distributed`` with
-    retry — coordinator startup on a pod slice is racy, and a transient
+    retry — coordinator startup on a multi-host cluster is racy, and a transient
     connect failure should not kill the job (SURVEY.md §5 failure-detection
     note; this is the framework's only multi-host init surface)."""
     import os

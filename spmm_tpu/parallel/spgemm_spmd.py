@@ -1,6 +1,6 @@
 """SPMD distributed SpGEMM — row-partitioned A under shard_map.
 
-BASELINE config 5: multi-host row-partitioned SpGEMM.  The left matrix is
+Multi-device row-partitioned SpGEMM.  The left matrix is
 row-block sharded over the mesh's "rows" axis (the reference's region split
 is the shard unit, SURVEY.md §2.4/§2.12).  Two B strategies:
 
@@ -21,7 +21,7 @@ Every shard runs the same slab-ESC program (ops/slab_spgemm.py) under
 - per-shard nnz enters as a traced scalar (the kernel only compares
   against it).
 
-On a real pod slice the "rows" axis maps to ICI-connected chips; on CI it is
+On a multi-GPU host the "rows" axis maps to the GPUs; on CI it is
 the 8-device virtual CPU mesh (SURVEY.md §4.3).  No collectives are needed in
 the compute itself (B replicated, outputs row-disjoint) — scaling efficiency
 is bounded by shard balance, which the preprocessing reorder + region split
@@ -183,8 +183,7 @@ def _make_spmd_run(mesh, axis, schedule, kw, W, accum_dtype, pattern, b_sharded,
 
 def _exchange_halo_body(b_ind, b_dat, extra, axis, pattern):
     """Runtime halo exchange, traced INSIDE a shard_map body: pack owned B
-    rows requested by each peer, swap via ``all_to_all`` (ICI on a real
-    slice), gather the received owner-major blocks into this shard's local
+    rows requested by each peer, swap via ``all_to_all``, gather the received owner-major blocks into this shard's local
     halo CSR.  In pattern mode only column ids travel (values are all 1.0 —
     half the wire traffic).  Shared by the one-shot halo-exchange run and the
     sharded-B plan phase (exchange once at plan time, re-execute with no
@@ -764,7 +763,7 @@ def spgemm_dist_halo_exchange(
 ):
     """C = A @ B with B **row-block sharded** and each shard's halo working
     set fetched at runtime by an ``all_to_all`` collective INSIDE the SPMD
-    program (SURVEY.md §2.12's halo exchange; rides ICI on a real slice).
+    program (SURVEY.md §2.12's halo exchange).
 
     Unlike :func:`spgemm_dist_halo` — which builds every shard's full B
     working set on the host and ships it at launch — no device ever holds
@@ -969,8 +968,8 @@ def spgemm_dist_plan(
     cache persists device-resident per shard — so re-execution via
     :func:`spgemm_dist_exec` is collective-free and no device ever holds a
     full B replica.  This is what makes the two-phase (plan-reuse) path and
-    the memory-scalable (sharded-B) path composable at config-5 scale
-    (BASELINE config 5; SURVEY.md §2.12)."""
+    the memory-scalable (sharded-B) path composable at >=100M-nnz scale
+    (SURVEY.md §2.12)."""
     W = seg_w
     classes = tuple(sorted({_round_up(c, W) for c in classes}))
     nsh = S.n_shards
@@ -1227,8 +1226,7 @@ def spgemm_dist_exec(plan: DistSpgemmPlan, mesh: Mesh, *, as_csr: bool = True):
 
 # ---------------------------------------------------------------------------
 # streamed distributed SpGEMM: the >=100M-nnz regime over a device mesh
-# (BASELINE config 5 end to end — the piece streaming of spgemm_slab_big
-# composed with the row-sharded SPMD execution)
+# (the piece streaming of spgemm_slab_big composed with the row-sharded SPMD execution)
 # ---------------------------------------------------------------------------
 
 
@@ -1270,7 +1268,7 @@ def spgemm_dist_big(
     checkpoint_dir: str | None = None,
     b_sharded: bool = False,
 ) -> CSR:
-    """C = A @ B streamed over a device mesh — BASELINE config 5 end to end:
+    """C = A @ B streamed over a device mesh, end to end:
     row-partitioned SpGEMM at the >=100M-nnz scale where neither the plan
     tables nor the output fit one program.
 
@@ -1292,8 +1290,8 @@ def spgemm_dist_big(
     one file) with a sha256-pinned manifest; a re-run resumes after the last
     finished piece.  Returns the assembled global host CSR.
 
-    ``b_sharded=False`` (default): B replicated per device (an ~8-byte/nnz
-    budget a 16 GB chip holds to ~1.5G nnz(B)).  ``b_sharded=True``: B is
+    ``b_sharded=False`` (default): B replicated per device (~8 bytes per
+    nnz(B) on every device).  ``b_sharded=True``: B is
     row-BLOCK sharded across the mesh and each piece's per-shard halo
     working set is fetched at runtime by the in-program ``all_to_all``
     (``spgemm_dist_halo_exchange``'s collective) — no device ever holds a

@@ -1,12 +1,12 @@
 """Distributed SpMM / SpMV / SpGEMM via shard_map over a device mesh.
 
-TPU-native realization of the scaling plan the reference implies but never
+Realization of the scaling plan the reference implies but never
 ships (SURVEY.md §2.12): row/block-partition the left matrix across devices;
 RHS panels are either all-gathered (small B) or ring-shifted with ``ppermute``
 so each shard streams remote panels through while computing (the bandwidth-
-optimal schedule — each B shard crosses each ICI hop exactly once).
+optimal schedule — each B shard crosses each link exactly once).
 
-All functions work identically on a real pod slice and on a CPU mesh created
+All functions work identically on a multi-GPU mesh and on a CPU mesh created
 with ``--xla_force_host_platform_device_count`` (SURVEY.md §4.3).
 """
 
@@ -64,7 +64,7 @@ def spmm_dist_ring(S: ShardedCSR, B: jax.Array, mesh: Mesh, *, axis: str = "rows
 
     Bandwidth-optimal when B is too large to replicate: at step t each shard
     multiplies against the B panel originally owned by shard (me + t) and
-    passes its current panel to the left neighbor (``ppermute`` over ICI),
+    passes its current panel to the left neighbor (``ppermute``),
     overlapping compute with the shift.  Only the nonzeros whose column falls
     inside the current panel contribute at each step (masked accumulate).
     """
@@ -128,7 +128,7 @@ def spmm_dist_colsplit(
     full-height partial product from its K slab with ZERO communication,
     then one ``psum_scatter`` row-shards the reduced Y (the tensor-parallel
     mirror of ``spmm_dist``'s data-parallel row split; bandwidth = exactly
-    one Y pass over ICI, the collective's lower bound).
+    one Y pass over the interconnect, the collective's lower bound).
 
     Use when A's rows are few-but-dense or B is too tall to gather: the
     only traffic is the output reduction, never A or B.  Returns Y as

@@ -1,11 +1,11 @@
 """Pass 3a/3b — panelization and per-panel row sort with v8 grouping.
 
-TPU-native redesign of the reference's panel layer
+Redesign of the reference's panel layer
 (reference: gen_panel_list v8sort.h:49-73; panel_sort_nnz v8sort.h:152-232).
 
 - Panelization: within a region, aim for ``rows/panel_rows + 1`` panels,
   balanced by nnz, boundaries aligned to the 8-row group width (the
-  reference advances in steps of 8; 8 is also the TPU fp32 sublane count).
+  reference advances in steps of 8).
 - Panel sort: rows sorted ascending by length (stable — the reference's
   argsort is unstable, an implementation accident not worth copying); rows
   sharing (panel, length) with length in (0, max_len] are grouped 8 at a

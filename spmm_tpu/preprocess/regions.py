@@ -1,10 +1,10 @@
 """Pass 2 — region split by distinct-column working set.
 
-TPU-native redesign of the reference's first-touch bitmap scan
+Redesign of the reference's first-touch bitmap scan
 (reference: transmat.h:334-376, threshold 512*1024/8 = 65536 distinct columns
-sized for a 512 KB cache of doubles).  On TPU the same pass budgets the
-per-region compacted RHS panel for VMEM: a region touching D distinct columns
-needs a (D, k) panel resident on-chip (SURVEY.md §2.4).
+sized for a 512 KB cache of doubles).  Here the same pass budgets the
+per-region compacted RHS panel: a region touching D distinct columns
+needs a (D, k) gathered panel (SURVEY.md §2.4).
 
 Semantics (verified against the reference, SURVEY.md §2.4): scan rows in
 order, counting first-touches of columns since the region began; once the

@@ -1,6 +1,6 @@
 """Pass 1 — dominant-section row reordering.
 
-TPU-native redesign of the reference's bitmap reorder
+Redesign of the reference's bitmap reorder
 (reference: bitmap.h:108-170, invoked with SECT=2048 at
 serial_newblock_clock.cpp:246).  Intent (SURVEY.md §2.3): split the column
 space into fixed-width sections; cluster rows whose nonzeros concentrate in

@@ -1,12 +1,16 @@
 """Device profiling — per-op time breakdown of a jitted computation.
 
-TPU-native replacement for the reference's chrono phase accumulators
+Replacement for the reference's chrono phase accumulators
 (reference: serial_newblock_clock.cpp:24-35 — 12 global wall-clock counters
 bracketing each pass; SURVEY.md §5): ``profile_fn`` captures a
 ``jax.profiler`` trace of one execution and aggregates device time per HLO
 fusion, attributed back to Python source lines via the compiled module's
-metadata.  This is how the SpGEMM kernel's gather/sort/scatter budget was
-measured (ops/slab_spgemm.py's rate table).
+metadata.
+
+The device's own events are picked by the running platform
+(:func:`device_events`): on a GPU the ``/device:GPU:N`` planes, on the CPU
+backend the XLA op events of the host plane.  A trace without device events
+is an error, not an empty profile.
 """
 
 from __future__ import annotations
@@ -63,15 +67,61 @@ def _source_map(compiled_text: str) -> dict:
     return out
 
 
+def device_events(trace: dict, platform: str) -> list:
+    """Complete ("X") events of the device that ran the program, from a
+    Chrome-format trace.  ``platform`` is ``jax.Device.platform``: "gpu"
+    keeps the ``/device:GPU:N`` processes (their stream lines: kernels, which
+    name their HLO op, and memsets); "cpu" keeps the ``/host:CPU`` events
+    that name an HLO op.  Raises ValueError when the trace has no such
+    events."""
+    evs = trace.get("traceEvents", [])
+    pids = {
+        e["pid"]: str(e.get("args", {}).get("name", ""))
+        for e in evs
+        if e.get("ph") == "M" and e.get("name") == "process_name"
+    }
+    xs = [e for e in evs if e.get("ph") == "X"]
+    if platform == "gpu":
+        dev = {p for p, n in pids.items() if n.startswith("/device:GPU:")}
+        xs = [e for e in xs if e.get("pid") in dev]
+    elif platform == "cpu":
+        host = {p for p, n in pids.items() if n.startswith("/host:CPU")}
+        xs = [e for e in xs if e.get("pid") in host and "hlo_op" in e.get("args", {})]
+    else:
+        raise ValueError(f"no device-plane rule for platform {platform!r}")
+    if not xs:
+        raise ValueError(f"trace has no {platform} device events")
+    return xs
+
+
+def reduce_trace(trace: dict, platform: str, srcmap: dict | None = None) -> "Profile":
+    """Device time per op (HLO op name where the event carries one)."""
+    agg = collections.Counter()
+    abytes = collections.Counter()
+    for e in device_events(trace, platform):
+        args = e.get("args", {})
+        name = args.get("hlo_op") or e["name"]
+        agg[name] += e.get("dur", 0)
+        try:
+            abytes[name] += int(args.get("bytes_accessed", 0))
+        except (TypeError, ValueError):
+            pass
+    srcmap = srcmap or {}
+    ops = [
+        OpTime(name=k, ms=v / 1e3, source=srcmap.get(k, ""), bytes_accessed=abytes[k])
+        for k, v in agg.most_common()
+    ]
+    return Profile(total_device_ms=sum(o.ms for o in ops), ops=ops)
+
+
 def profile_fn(fn: Callable, *args, fence: Callable | None = None, **kwargs) -> Profile:
     """Run ``fn(*args, **kwargs)`` once under a profiler trace and aggregate
     device-side op times.  ``fn`` should be jitted (or call jitted code);
-    ``fence`` (default: numpy-read the first leaf) forces completion inside
+    ``fence`` (default: ``jax.block_until_ready``) forces completion inside
     the trace window."""
     import shutil
 
     import jax
-    import numpy as np
 
     # warm (compile outside the trace)
     out = fn(*args, **kwargs)
@@ -85,8 +135,7 @@ def profile_fn(fn: Callable, *args, fence: Callable | None = None, **kwargs) -> 
 
         # source attribution via the jitted function's compiled text
         srcmap = {}
-        lowered = getattr(fn, "lower", None)
-        if lowered is not None:
+        if getattr(fn, "lower", None) is not None:
             try:
                 srcmap = _source_map(fn.lower(*args, **kwargs).compile().as_text())
             except Exception:
@@ -94,43 +143,18 @@ def profile_fn(fn: Callable, *args, fence: Callable | None = None, **kwargs) -> 
 
         traces = sorted(glob.glob(os.path.join(tmp, "plugins/profile/*/*.trace.json.gz")))
         if not traces:
-            return Profile(total_device_ms=float("nan"), ops=[])
-        d = json.load(gzip.open(traces[-1]))
+            raise RuntimeError("jax.profiler wrote no trace")
+        with gzip.open(traces[-1]) as f:
+            d = json.load(f)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    pids = {}
-    for e in d.get("traceEvents", []):
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pids[e["pid"]] = e.get("args", {}).get("name", "")
-    agg = collections.Counter()
-    abytes = collections.Counter()
-    for e in d.get("traceEvents", []):
-        if e.get("ph") != "X" or "TPU" not in str(pids.get(e.get("pid"), "")):
-            continue
-        name = e["name"]
-        if name.startswith("jit"):  # umbrella event double-counts its children
-            continue
-        agg[name] += e.get("dur", 0)
-        try:
-            abytes[name] += int(e.get("args", {}).get("bytes_accessed", 0))
-        except (TypeError, ValueError):
-            pass
-    ops = [
-        OpTime(name=k, ms=v / 1e3, source=srcmap.get(k, ""), bytes_accessed=abytes[k])
-        for k, v in agg.most_common()
-    ]
-    return Profile(total_device_ms=sum(o.ms for o in ops), ops=ops)
+    return reduce_trace(d, jax.devices()[0].platform, srcmap)
 
 
 def _fence(out, fence):
     import jax
-    import numpy as np
 
     if fence is not None:
         fence(out)
         return
     jax.block_until_ready(out)
-    for leaf in jax.tree.leaves(out):
-        if hasattr(leaf, "devices"):
-            np.asarray(leaf.reshape(-1)[:1] if getattr(leaf, "ndim", 0) else leaf)
-            break

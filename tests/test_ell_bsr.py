@@ -1,3 +1,5 @@
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +73,84 @@ def test_bsr_empty_block_rows():
     np.testing.assert_allclose(Yp, A.to_scipy() @ B, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("n,k,block", [
+    (300, 40, (8, 128)),  # B rows padded to the block column, k to the k tile
+    (250, 16, (16, 64)),  # 16-row blocks: no in-kernel row padding
+    (200, 100, (32, 32)),  # two k tiles, the second padded
+    (130, 8, (8, 16)),  # k below the 16-wide dot minimum
+])
+def test_bsr_kernel_shapes_and_padding(n, k, block):
+    """The Triton kernel (interpret mode) over block shapes and RHS widths
+    that need padding, against the XLA formulation and scipy."""
+    A = banded_random(n, 48, 0.3, seed=n)
+    Ab = csr_to_bsr(A, block).device()
+    B = np.random.default_rng(k).standard_normal((n, k)).astype(np.float32)
+    ref = A.to_scipy() @ B
+    Yp = np.asarray(bsr_spmm_pallas(Ab, jnp.asarray(B), interpret=True))
+    assert Yp.shape == (n, k)
+    np.testing.assert_allclose(Yp, ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        np.asarray(bsr_spmm_xla(Ab, jnp.asarray(B))), ref, rtol=1e-4, atol=1e-4
+    )
+
+
+def test_bsr_kernel_rejects_block_shapes_it_cannot_tile():
+    A = banded_random(96, 16, 0.3, seed=1)
+    B = jnp.ones((96, 16), jnp.float32)
+    for block in ((8, 8), (12, 128)):
+        with pytest.raises(ValueError, match="block shape"):
+            bsr_spmm_pallas(csr_to_bsr(A, block).device(), B, interpret=True)
+
+
+def test_bsr_dispatcher_chooses_kernel_by_backend(monkeypatch):
+    """ops.spmm on a BSR runs the Triton kernel on a GPU backend (for block
+    shapes it takes) and the XLA formulation elsewhere."""
+    import spmm_tpu.ops.pallas_bsr as pb
+    from spmm_tpu.ops import spmm
+
+    A = banded_random(200, 32, 0.3, seed=4)
+    B = jnp.asarray(np.random.default_rng(4).standard_normal((200, 32)).astype(np.float32))
+    calls = []
+    monkeypatch.setattr(pb, "bsr_spmm_pallas", lambda *a, **k: calls.append("kernel"))
+    monkeypatch.setattr(pb, "bsr_spmm_xla", lambda *a, **k: calls.append("xla"))
+    spmm(csr_to_bsr(A).device(), B)
+    monkeypatch.setattr(pb.jax, "default_backend", lambda: "gpu")
+    spmm(csr_to_bsr(A).device(), B)
+    spmm(csr_to_bsr(A, (8, 8)).device(), B)  # bn < 16: no kernel
+    assert calls == ["xla", "kernel", "xla"]
+
+
+def test_bsr_kernel_lowers_for_cuda():
+    """The kernel lowers to Triton IR for a CUDA target (done on the host,
+    no GPU needed): catches operand rules of the Triton route, such as the
+    dot's 16-wide minimum, before a run on the card."""
+    A = banded_random(256, 64, 0.3, seed=2)
+    Ab = csr_to_bsr(A).device()
+    for dt in (jnp.float32, jnp.bfloat16):
+        Bs = dataclasses.replace(Ab, data=jnp.asarray(Ab.data).astype(dt))
+        B = jnp.ones((256, 128), dt)
+        text = (
+            jax.jit(bsr_spmm_pallas).trace(Bs, B)
+            .lower(lowering_platforms=("cuda",)).as_text()
+        )
+        assert "__gpu$xla.gpu.triton" in text
+
+
+@pytest.mark.gpu
+def test_bsr_kernel_compiled_matches_xla():
+    """On the card: the compiled kernel (no interpret mode) against the XLA
+    formulation and scipy, fp32 to full precision."""
+    A = banded_random(4096, 256, 0.25, seed=6)
+    Ab = csr_to_bsr(A).device()
+    B = np.random.default_rng(6).standard_normal((4096, 128)).astype(np.float32)
+    ref = A.to_scipy().astype(np.float64) @ B.astype(np.float64)
+    Yp = np.asarray(jax.jit(bsr_spmm_pallas)(Ab, jnp.asarray(B)), np.float64)
+    Yx = np.asarray(jax.jit(bsr_spmm_xla)(Ab, jnp.asarray(B)), np.float64)
+    scale = np.abs(ref).max()
+    assert np.abs(Yp - ref).max() <= 1e-4 * scale
+    assert np.abs(Yx - ref).max() <= 1e-4 * scale
+
+
 def test_spmm_dispatcher_formats():
     from spmm_tpu.ops import spmm
 
@@ -85,7 +165,7 @@ def test_spmm_dispatcher_formats():
 def test_ell_spmm_long_rows_and_narrow_k():
     """Rows beyond the exact-length classes (einsum slab path) and k < 128
     (the lane-padding workaround) — full-precision parity vs an f64 oracle.
-    Regression: TPU einsum defaults to bf16 without precision=HIGHEST."""
+    Regression: a default-precision einsum may run reduced-precision passes."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -107,7 +187,7 @@ def test_ell_spmm_long_rows_and_narrow_k():
 
 
 def test_bsr_spmv_fp32_fp64_parity():
-    """BASELINE config 4: block-compressed SpMV, fp32/fp64 tolerance parity."""
+    """Block-compressed SpMV, fp32/fp64 tolerance parity."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -142,38 +222,11 @@ def test_ell_spmm_wide_k():
     np.testing.assert_allclose(Y, A.to_scipy() @ B, rtol=2e-4, atol=2e-4)
 
 
-def test_pallas_ell_octet_kernel_interpret():
-    """The per-row-DMA v8 Pallas kernel (ops/pallas_ell.py, VERDICT r1 #10
-    experiment) matches the dense oracle in interpret mode."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from spmm_tpu.ops.pallas_ell import ell_slab_spmm_pallas
-
-    rng = np.random.default_rng(0)
-    R, L, n, k = 16, 5, 64, 128
-    cols = rng.integers(0, n, (R, L)).astype(np.int32)
-    data = rng.standard_normal((R, L)).astype(np.float32)
-    B = rng.standard_normal((n, k)).astype(np.float32)
-    Y = np.asarray(
-        ell_slab_spmm_pallas(
-            jnp.asarray(cols), jnp.asarray(data), jnp.asarray(B), interpret=True
-        )
-    )
-    ref = np.zeros((R, k), np.float32)
-    for i in range(R):
-        for e in range(L):
-            ref[i] += data[i, e] * B[cols[i, e]]
-    np.testing.assert_allclose(Y, ref, rtol=1e-5, atol=1e-5)
-
-
 def test_bf16_operands_supported():
     """bf16 RHS/values are first-class: kernels gather in the storage dtype
     and accumulate fp32 (``accum_dtype``), so bf16 operands halve operand HBM
-    footprint at ~1e-3 relative error.  Measured on v5e (DESIGN.md §6): bf16
-    does NOT speed up these kernels — the ELL gather charges per ROW
-    (width-blind) and the BSR grid is per-step latency-bound — so bf16 here
-    is a memory-capacity option, not a throughput one."""
+    footprint at ~1e-3 relative error.  The BSR kernel multiplies bf16
+    blocks with an fp32 accumulator."""
     import dataclasses
 
     A = webgraph_like(1200, 9000, seed=12)

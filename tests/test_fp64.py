@@ -1,6 +1,6 @@
-"""fp64 tolerance parity (BASELINE config 4; SURVEY.md §7 'fp64 parity').
+"""fp64 tolerance parity (SURVEY.md §7 'fp64 parity').
 
-TPU fp64 is emulated and slow, so fp64 runs live on the CPU backend (these
+fp64 runs live on the CPU backend here (these
 tests, per conftest) with ``jax.enable_x64`` — fp32 remains the
 performance dtype.  Tolerances here are at fp64 machine-epsilon scale, far
 tighter than the fp32 kernels' 1e-5.

@@ -153,7 +153,8 @@ def test_blocked_spmm_slab_view():
 
 def test_spmv_auto_ell_pack_and_memoize():
     """Large host CSRs auto-pack to ELL in the spmv/spmm dispatchers (the
-    raw gather+scatter CSR path cost a k=128 SpMM per SpMV, BENCH_r01) and
+    raw gather+scatter CSR path pays a scalar gather and a scatter per
+    nonzero) and
     the pack is built once per CSR instance."""
     import jax.numpy as jnp
     import numpy as np
@@ -232,7 +233,7 @@ def test_blocked_spmm_panel_two_stage():
     # no-view path
     Y2 = np.asarray(blocked_spmm_panel(P, jnp.asarray(B)))
     np.testing.assert_allclose(Y2, ref, rtol=1e-4, atol=1e-4)
-    # slab (MXU tile) formulation over the panel
+    # slab (dense tile) formulation over the panel
     view = blocked_slab_view(P, panel=True)
     assert len(view) == 4
     Y3 = np.asarray(blocked_spmm_slab(P, jnp.asarray(B), view))

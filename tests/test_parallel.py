@@ -124,17 +124,23 @@ def test_uneven_rows_and_empty_shards(mesh):
     np.testing.assert_allclose(Y, A.to_scipy() @ B, rtol=1e-4, atol=1e-4)
 
 
-def test_graft_entry_dryrun():
-    import __graft_entry__ as ge
+def test_chip_smoke_multichip_phase_on_four_devices():
+    """chip_smoke.py's distributed phase (the `--chips 4` run) on 4 of the
+    8 virtual devices at tiny size: every strategy against scipy."""
+    import chip_smoke
 
-    fn, args = ge.entry()
-    out = jax.jit(fn)(*args)
-    assert out.shape == (4096, 128)
-    ge.dryrun_multichip(8)
+    lines = chip_smoke.phase_multichip(
+        4, 1200, 7200, seed=1, k=16, classes=(16, 64), slot_budget=1 << 14
+    )
+    names = [check.split()[0] for check, _, _ in lines]
+    assert names == [
+        "spmm_dist_ring", "spmm_dist_colsplit", "spgemm_dist_spmd",
+        "spgemm_dist_plan/exec", "spgemm_dist_revalue", "spgemm_dist_big",
+    ]
 
 
 def test_spgemm_dist_spmd_matches_scipy():
-    """SPMD row-partitioned SpGEMM (BASELINE config 5 machinery) on the
+    """SPMD row-partitioned SpGEMM on the
     8-device CPU mesh vs the scipy oracle."""
     import numpy as np
 
@@ -231,8 +237,7 @@ def test_spgemm_dist_halo_matches_scipy():
 
 def test_spgemm_dist_halo_tail_fallback():
     """Halo SpGEMM on a power-law graph WITH heavy-tail rows and default
-    classes: tails route through the host fallback instead of raising
-    (VERDICT r1 weak #7)."""
+    classes: tails route through the host fallback instead of raising."""
     import numpy as np
     import scipy.sparse as sp
 
@@ -305,7 +310,7 @@ def test_spgemm_dist_csr_device_resident():
 
 def test_spgemm_dist_halo_exchange_matches_scipy(monkeypatch):
     """Runtime halo exchange: B row-block sharded, working sets pulled by an
-    in-program all_to_all (VERDICT r1 missing #2).  Parity in pattern and
+    in-program all_to_all.  Parity in pattern and
     value modes; the collective is actually traced into the program."""
     import dataclasses
 
@@ -379,8 +384,7 @@ def test_spgemm_dist_plan_b_sharded(mesh):
     """Two-phase plan with B row-BLOCK sharded: structure exchanged once at
     plan time via the in-program ``all_to_all``, aligned cache device
     resident, re-execution collective-free — parity with scipy in pattern
-    AND value modes.  This is the composition VERDICT r4 named: plan reuse
-    no longer requires a replicated B."""
+    AND value modes: plan reuse does not require a replicated B."""
     import dataclasses as _dc
 
     from spmm_tpu.parallel import partition_rows
@@ -408,7 +412,7 @@ def test_spgemm_dist_plan_b_sharded(mesh):
 
 
 def test_spgemm_dist_big(mesh, tmp_path, monkeypatch):
-    """Streamed distributed SpGEMM (BASELINE config 5 composition): pieces
+    """Streamed distributed SpGEMM: pieces
     of every shard run through ONE compiled SPMD program; exact scipy parity
     of the stitched CSR; piece-granular checkpoint/resume."""
     import glob
@@ -446,8 +450,8 @@ def test_spgemm_dist_big(mesh, tmp_path, monkeypatch):
 
 @pytest.mark.slow
 def test_spgemm_dist_moderate_scale(mesh):
-    """Moderate-scale distributed parity (VERDICT r4 weakness #8: all
-    distributed parity was toy-sized).  A power-law product with >=1M output
+    """Moderate-scale distributed parity (the other distributed tests are
+    toy-sized).  A power-law product with >=1M output
     nonzeros through BOTH the device-resident strategy and the runtime halo
     exchange, exact nnz/index parity against scipy."""
     from spmm_tpu.parallel import partition_rows
@@ -554,7 +558,7 @@ def test_spgemm_dist_big_b_sharded(mesh):
 def test_spgemm_dist_big_all_tail(mesh):
     """Every row past the class ceiling (empty chunk schedule): the whole
     product routes through the host tail fallback instead of crashing inside
-    the compact program trace (r5 review finding)."""
+    the compact program trace."""
     from spmm_tpu.parallel.spgemm_spmd import spgemm_dist_big
 
     A = webgraph_like(1024, 8000, seed=81)

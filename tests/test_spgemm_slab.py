@@ -151,8 +151,8 @@ def test_spgemm_slab_csr_device_chainable():
 
 def test_spgemm_chain_no_host_roundtrip(monkeypatch):
     """Chaining C = A@A into C@A keeps sizing ON DEVICE: no ``.host()`` pull
-    and no nnz-scale ``np.asarray`` of the chained operand (VERDICT r1 weak
-    #9 — `_sizing` used to pull the full device CSR per product)."""
+    and no nnz-scale ``np.asarray`` of the chained operand (`_sizing` used
+    to pull the full device CSR per product)."""
     from spmm_tpu.ops.slab_spgemm import spgemm_slab_csr
 
     A = webgraph_like(900, 5400, seed=5)
